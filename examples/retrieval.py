@@ -1,8 +1,7 @@
 """Adjoint-based canopy-parameter retrieval.
 
 A capability the Fortran reference does not have: because the whole solver
-is differentiable (including the Pallas kernel path, via its custom VJP),
-canopy properties can be retrieved from observed fluxes by gradient
+is differentiable, canopy properties can be retrieved from observed fluxes by gradient
 descent.  This example retrieves the per-column vegetation extinction
 coefficient of a vegetated-urban canopy from "observed" top-of-canopy
 albedos and ground fluxes (generated with the true extinction), using

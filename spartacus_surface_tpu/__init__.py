@@ -1,17 +1,17 @@
-"""spartacus_surface_tpu: a TPU-native SPARTACUS-Surface canopy radiation framework.
+"""spartacus_surface_tpu: a JAX SPARTACUS-Surface canopy radiation framework.
 
-A brand-new JAX/XLA/Pallas implementation of the capabilities of ECMWF's
-SPARTACUS-Surface scheme (reference: Fortran-2003, /root/reference): 3-D
+A brand-new JAX/XLA implementation of the capabilities of ECMWF's
+SPARTACUS-Surface scheme (reference: Fortran-2003, ecmwf/spartacus-surface): 3-D
 shortwave and longwave radiative transfer in forest and urban canopies
 described statistically, using a multi-layer, multi-region, multi-stream
 discrete-ordinate formulation.
 
-Design (TPU-first, not a port):
+Design (re-derived for accelerators, not a port):
   * The reference's per-layer eigen-decomposition machinery
     (radtool/radtool_calc_matrices_sw_eig.F90, radtool_eigen_decomposition.F90)
     is replaced by a branch-free matrix-exponential + adding-method-doubling
-    kernel built entirely from batched small-matrix multiplies and pivot-free
-    LU solves (ops/layer_matrices.py), batched over columns x layers x
+    kernel built entirely from batched small-matrix multiplies and LU
+    solves (ops/layer_matrices.py), batched over columns x layers x
     spectral intervals.
   * Ragged packed columns (radsurf/radsurf_canopy_properties.F90:43-59) become
     dense padded tensors with dz=0 padding layers (expm(0)=I makes padding an

@@ -83,7 +83,7 @@ def save_canopy_fluxes(path, config, arrays, flux_sw, flux_lw, iverbose=None,
                 " transfer in complex urban canopies for use in weather and"
                 " climate models. Boundary-Layer Meteorol., 173, 53-78."
             ),
-            source="SPARTACUS-Surface offline radiation model (TPU build)",
+            source="SPARTACUS-Surface offline radiation model (JAX build)",
             comment=(
                 "All fluxes and absorption rates are in terms of power per"
                 " unit horizontal area of the domain. Net fluxes are"
@@ -139,9 +139,8 @@ def _define_and_write(out, band, long_band, flux, nlay, do_bb, do_spec,
     speclaydim = ("column", "layer", f"band_{band}")
 
     # Store flux fields in the WORKING precision: a single-precision
-    # solve (the TPU production mode) carries no information beyond f32,
-    # and f64 storage would double the size and write time of
-    # production-scale outputs (50k rami5 columns: 3.7 GB -> 1.9 GB).
+    # solve carries no information beyond f32, and f64 storage would
+    # double the size and write time of production-scale outputs.
     flux_char = (
         "f"
         if any(np.asarray(v).dtype == np.float32

@@ -13,7 +13,7 @@ computations in one compilation unit.
 Device-mesh execution: pass `mesh=` (a 1-D jax.sharding Mesh over the
 column axis, parallel/mesh.py) and every group's inputs are padded to a
 device multiple and sharded along columns before the fused solve — the
-TPU-native equivalent of the reference's OpenMP block loop
+equivalent of the reference's OpenMP block loop
 (driver/spartacus_surface_driver.F90:199-234).
 """
 
@@ -271,9 +271,8 @@ def _radsurf_core(payloads, plan, shape, mesh=None):
     input pytrees (already padded/sharded by the caller); mesh: when
     given, the layered-solver groups run under jax.shard_map over the
     column axis, so column chunking (SolverOptions.column_chunk,
-    including AUTO) applies PER SHARD — each device streams its own
-    ~2k-column chunks, keeping both the chunking throughput win and the
-    bounded-HBM property of unsharded runs.
+    including AUTO) applies PER SHARD — each device bounds its own
+    working set, as an unsharded run does.
     """
     (ncol, nlay, nsw, nlw, do_sw, do_lw, with_profiles, dtype_str) = shape
     dtype = np.dtype(dtype_str)

@@ -45,6 +45,7 @@ import numpy as np
 from ..ops.layer_matrices import layer_matrices, lw_layer_matrices
 from ..ops.legendre_gauss import LegendreGauss
 from ..ops.matrix import matmul, matvec, solve
+from ..utils import memory
 from ..utils.constants import Pi
 from . import gamma as G
 from .geometry import (
@@ -186,29 +187,6 @@ class SolverOptions:
     # property fuzzer: top_albedo 5.5e4 at cap 12).  Adaptive K means
     # typical layers still take only their ceil(log2(norm/2)) steps.
     n_double: int = 30
-    # Chunk size for the per-layer operator factory: bounds the transient
-    # HBM footprint of the expm working set (XLA pads the trailing
-    # small-matrix dims to (8,128) tiles, a ~10x expansion, so unchunked
-    # factories OOM beyond ~16k columns/chip).  0 = no chunking.  Unit:
-    # COLUMNS on the unfused paths; on the fused tile-native path the
-    # chunk applies to the flattened column x spectral batch (C*S
-    # elements, rounded down to whole 1024-element kernel tiles), so
-    # multiband runs chunk at batch-element rather than column
-    # granularity.
-    factory_chunk: int = 8192
-    # Run the expm+doubling stage through the hand-written batch-in-lanes
-    # Pallas kernel (ops/pallas_layer.py) instead of the XLA path.
-    # None = auto: ON when the backend is a real TPU (measured ~6x faster
-    # than the XLA path on v5e), OFF elsewhere (the interpreter is slow).
-    # SPARTACUS_PALLAS=1/0 force-overrides.  The XLA path remains the
-    # reference implementation.
-    use_pallas_factory: bool | None = None
-    # Run the adding-method up-sweep and flux down-sweeps through the
-    # batch-in-lanes Pallas kernels (ops/pallas_sweep.py) instead of the
-    # XLA lax.scan path.  None = auto (same policy as the factory, plus a
-    # VMEM-footprint guard on the system size).  SPARTACUS_PALLAS_SWEEPS=1/0
-    # force-overrides.
-    use_pallas_sweeps: bool | None = None
     # Replace the sequential lax.scan adding/flux recurrences with
     # O(log nlay)-depth associative scans (ops/assoc_adding.py): the
     # upward interface-operator build becomes a Redheffer-star prefix
@@ -216,22 +194,16 @@ class SolverOptions:
     # block-affine carry maps.  ~4-6x more FLOPs but L/log2(L) less
     # dependency depth — for very deep canopies (hundreds of layers) at
     # small batch, where the layer chain rather than throughput binds.
-    # XLA path only (forces the Pallas sweep kernels off); parity with
-    # the scan path is exercised in tests/test_associative.py.
+    # Parity with the scan path is exercised in tests/test_associative.py.
     associative_sweeps: bool = False
     # Solve in column chunks of this size via lax.map (0 = whole batch in
-    # one pass; -1 = AUTO, see _resolve_column_chunk).  Bounds the HBM
-    # working set — the per-interface operator stacks are the largest
-    # transient (~70 KB/column at nreg=2, ns=4, L=8) — so datasets of 1M+
-    # columns fit on one chip.  Columns are padded up to a chunk multiple
-    # with no-op values and sliced off.  Chunking is also a measured perf
-    # WIN on the fused kernel path (~2k-column chunks keep the transient
-    # operator stacks streaming instead of thrashing HBM: v5e headline
-    # 1.70M -> 2.18M cols/s, nreg=3 744k -> 818k), which is what AUTO
-    # exploits.  Under a mesh, run_radsurf executes the solver inside
-    # jax.shard_map, so the chunk reshape (and AUTO resolution) sees the
-    # per-device LOCAL batch — chunking composes with sharding instead
-    # of being disabled by it.
+    # one pass; -1 = AUTO, see _resolve_column_chunk).  Bounds the device
+    # working set: every column x layer x band element carries its own
+    # factory matrices and interface-operator stacks, so the footprint
+    # grows linearly with the batch (utils/memory.py).  Columns are padded
+    # up to a chunk multiple with no-op values and sliced off.  Under a
+    # mesh, run_radsurf executes the solver inside jax.shard_map, so the
+    # chunk reshape (and AUTO resolution) sees the per-device LOCAL batch.
     column_chunk: int = 0
 
 
@@ -385,45 +357,7 @@ def _spartacus_sw_impl(inp: CanopyInputs, opt: SolverOptions,
     )
     dz_b = jnp.broadcast_to(inp.dz[:, :, None], (C, L, S))
     g0 = jnp.broadcast_to(g0, (C, L, S, nreg, nreg))
-    use_pf = _use_pallas(opt)
-    use_ps = _use_pallas_sweeps(opt, lg) and not opt.associative_sweeps
-
-    if use_pf and use_ps:
-        # Fused tile-native path: gammas are relaid out ONCE into the
-        # kernel tile layout; factory outputs flow to the sweep kernels as
-        # raw [nb, L, rows, 8, 128] tiles with zero intermediate copies
-        # (ROADMAP item 1: the former untile -> transpose -> retile glue).
-        from ..ops.pallas_layer import pallas_layer_tiles
-
-        dtype = g1.dtype
-        gbl, dz_bl, chunk_nb = _tiled_gamma_prep(
-            inp.dz, C, S, L, dtype, opt.factory_chunk
-        )
-        lay = pallas_layer_tiles(
-            gbl(g0, nreg, nreg), gbl(g1, nd, nd), gbl(g2, nd, nd),
-            gbl(g3, nd, nreg), dz_bl,
-            nd=nd, ndir=nreg, n_double=opt.n_double, chunk_nb=chunk_nb,
-        )
-        return _sw_pallas_path(
-            inp, opt, lg, geo, lay, zcos, sin0, with_profiles, tiled=True
-        )
-
-    # lay entries come back with the matrix dims FLATTENED ([C,L,S,n*m]):
-    # storage/bandwidth-optimal on TPU; unflattened views are taken per
-    # scan step.
-    if use_pf:
-        from ..ops.pallas_layer import pallas_layer_matrices
-
-        factory = lambda a: pallas_layer_matrices(*a, n_double=opt.n_double)
-    else:
-        factory = lambda a: layer_matrices(*a, n_double=opt.n_double)
-    lay = _chunked_factory(factory, (g0, g1, g2, g3, dz_b),
-                           opt.factory_chunk)
-
-    if use_ps:
-        return _sw_pallas_path(
-            inp, opt, lg, geo, lay, zcos, sin0, with_profiles
-        )
+    lay = layer_matrices(g0, g1, g2, g3, dz_b, n_double=opt.n_double)
 
     # ------------------------------------------------------------------
     # Phase 2: upward adding scan (radsurf_urban_sw.F90:590-654)
@@ -452,12 +386,7 @@ def _spartacus_sw_impl(inp: CanopyInputs, opt: SolverOptions,
 
     def up_step(carry, x):
         a_above, d_above = carry
-        Rf, Tf, Ef, Supf, Sdnf, u_ov, v_ov, ralb, ralb_dir = x
-        R = _unflat(Rf, nd, nd)
-        T = _unflat(Tf, nd, nd)
-        E = _unflat(Ef, nreg, nreg)
-        Sup = _unflat(Supf, nd, nreg)
-        Sdn = _unflat(Sdnf, nd, nreg)
+        R, T, E, Sup, Sdn, u_ov, v_ov, ralb, ralb_dir = x
         eye = jnp.eye(nd, dtype=dtype)
         denom = eye - matmul(a_above, R)
         # a_below/d_below for the permeable regions
@@ -481,18 +410,17 @@ def _spartacus_sw_impl(inp: CanopyInputs, opt: SolverOptions,
         # Overlap to just above the interface (radsurf_urban_sw.F90:646-653)
         a_above_new = _u_mat_v(u_ov, a_below, v_ov, ns)
         d_above_new = _u_dmat_v(u_ov, d_below, v_ov, ns)
-        ys = (_flat(a_above), _flat(d_above), _flat(denom), _flat(a_below),
-              _flat(d_below))
+        ys = (a_above, d_above, denom, a_below, d_below)
         return (a_above_new, d_above_new), ys
 
     xs = (
-        lay["R"].transpose(1, 0, 2, 3),
-        lay["T"].transpose(1, 0, 2, 3),
-        lay["E"].transpose(1, 0, 2, 3),
-        lay["Sup"].transpose(1, 0, 2, 3),
-        lay["Sdn"].transpose(1, 0, 2, 3),
-        geo["u_ov"].transpose(1, 0, 2, 3),
-        geo["v_ov"].transpose(1, 0, 2, 3),
+        lay["R"].swapaxes(0, 1),
+        lay["T"].swapaxes(0, 1),
+        lay["E"].swapaxes(0, 1),
+        lay["Sup"].swapaxes(0, 1),
+        lay["Sdn"].swapaxes(0, 1),
+        geo["u_ov"].swapaxes(0, 1),
+        geo["v_ov"].swapaxes(0, 1),
         roof_alb.transpose(1, 0, 2),
         roof_alb_dir.transpose(1, 0, 2),
     )
@@ -507,9 +435,9 @@ def _spartacus_sw_impl(inp: CanopyInputs, opt: SolverOptions,
         )
 
         elems = sw_layer_star_elements(
-            _unflat(xs[0], nd, nd), _unflat(xs[1], nd, nd),
-            _unflat(xs[2], nreg, nreg), _unflat(xs[3], nd, nreg),
-            _unflat(xs[4], nd, nreg), xs[5], xs[6],
+            xs[0], xs[1],
+            xs[2], xs[3],
+            xs[4], xs[5], xs[6],
             xs[7][..., None, None] * (hw[:, None] * jnp.ones((ns, ns), dtype)),
             (zcos[None, :, None] * xs[8])[..., None] * jnp.asarray(hw, dtype),
             nreg, ns,
@@ -566,22 +494,10 @@ def _spartacus_sw_impl(inp: CanopyInputs, opt: SolverOptions,
 
         def down_step(carry, x):
             dn_dir, dn_diff, dn_dir_clear = carry
-            (Rf, Tf, Ef, Sdnf, int_dirf, int_difff, int_dir_difff, a_abovef,
-             d_abovef, denomf, a_belowf, d_belowf, u_ov, v_ov, fw, fwdc,
+            (R, T, E, Sdn, int_dir, int_diff, int_dir_diff, a_above,
+             d_above, denom, a_below, d_below, u_ov, v_ov, fw, fwdc,
              od_l, ab_coef, vb_coef, wa, dz_l, aet, rfrac, nbf_l, nbfa, tdc,
              vfr) = x
-            R = _unflat(Rf, nd, nd)
-            T = _unflat(Tf, nd, nd)
-            E = _unflat(Ef, nreg, nreg)
-            Sdn = _unflat(Sdnf, nd, nreg)
-            int_dir = _unflat(int_dirf, nreg, nreg)
-            int_diff = _unflat(int_difff, nd, nd)
-            int_dir_diff = _unflat(int_dir_difff, nd, nreg)
-            a_above = _unflat(a_abovef, nd, nd)
-            d_above = _unflat(d_abovef, nd, nreg)
-            denom = _unflat(denomf, nd, nd)
-            a_below = _unflat(a_belowf, (nreg + 1) * ns, (nreg + 1) * ns)
-            d_below = _unflat(d_belowf, (nreg + 1) * ns, nreg + 1)
             # Translate across the interface at layer top
             # (radsurf_urban_sw.F90:707-714)
             dn_dir_below = _ov_dirvec(v_ov, dn_dir)  # [C, S, nreg+1]
@@ -742,16 +658,16 @@ def _spartacus_sw_impl(inp: CanopyInputs, opt: SolverOptions,
             dn_dir_clear0 = jnp.ones((C,), dtype)
 
         xs_sweep = (
-            lay["R"].transpose(1, 0, 2, 3),
-            lay["T"].transpose(1, 0, 2, 3),
-            lay["E"].transpose(1, 0, 2, 3),
-            lay["Sdn"].transpose(1, 0, 2, 3),
-            lay["int_dir"].transpose(1, 0, 2, 3),
-            lay["int_diff"].transpose(1, 0, 2, 3),
-            lay["int_dir_diff"].transpose(1, 0, 2, 3),
+            lay["R"].swapaxes(0, 1),
+            lay["T"].swapaxes(0, 1),
+            lay["E"].swapaxes(0, 1),
+            lay["Sdn"].swapaxes(0, 1),
+            lay["int_dir"].swapaxes(0, 1),
+            lay["int_diff"].swapaxes(0, 1),
+            lay["int_dir_diff"].swapaxes(0, 1),
             a_above_l, d_above_l, denom_l, a_below_l, d_below_l,
-            geo["u_ov"].transpose(1, 0, 2, 3),
-            geo["v_ov"].transpose(1, 0, 2, 3),
+            geo["u_ov"].swapaxes(0, 1),
+            geo["v_ov"].swapaxes(0, 1),
             geo["f_wall"].transpose(1, 0, 2),
             f_wall_dir_clear.transpose(1, 0),
             _pad_od(geo["od_scaling"]).transpose(1, 0, 2),
@@ -775,26 +691,25 @@ def _spartacus_sw_impl(inp: CanopyInputs, opt: SolverOptions,
                 scalar_suffix_carries,
             )
 
-            Tl = _unflat(xs_sweep[1], nd, nd)
-            denom_u = _unflat(denom_l, nd, nd)
-            v_reg = geo["v_ov"].transpose(1, 0, 2, 3)[..., :nreg, :]
+            v_reg = geo["v_ov"].swapaxes(0, 1)[..., :nreg, :]
             TVr = jnp.einsum(
-                "lcsirn,lcrq->lcsiqn", Tl.reshape(L, C, S, nd, nreg, ns),
+                "lcsirn,lcrq->lcsiqn",
+                xs_sweep[1].reshape(L, C, S, nd, nreg, ns),
                 v_reg, precision="highest",
             ).reshape(L, C, S, nd, nd)
-            Cmap = solve(denom_u, TVr)
+            Cmap = solve(denom_l, TVr)
             if with_direct:
                 Amap = jnp.einsum(
-                    "lcspr,lcrw->lcspw", _unflat(xs_sweep[2], nreg, nreg),
+                    "lcspr,lcrw->lcspw", xs_sweep[2],
                     v_reg, precision="highest",
                 )
                 SdnV = jnp.einsum(
-                    "lcsip,lcpw->lcsiw", _unflat(xs_sweep[3], nd, nreg),
+                    "lcsip,lcpw->lcsiw", xs_sweep[3],
                     v_reg, precision="highest",
                 )
-                Bmap = solve(denom_u, matmul(
-                    _unflat(xs_sweep[0], nd, nd),
-                    matmul(_unflat(d_above_l, nd, nreg), Amap),
+                Bmap = solve(denom_l, matmul(
+                    xs_sweep[0],
+                    matmul(d_above_l, Amap),
                 ) + SdnV)
                 cs = (nbf / nbf_above * trans_dir_clear).transpose(1, 0)
             else:
@@ -860,475 +775,6 @@ def _pad_od(od_scaling):
     return od_scaling
 
 
-def _use_pallas(opt: SolverOptions) -> bool:
-    import os
-
-    # An explicit opt value wins over the env force-override: the
-    # custom_vjp backward pins use_pallas_factory=False (_xla_only) so
-    # jax.grad works even under SPARTACUS_PALLAS=1 (the Pallas kernels
-    # have no AD rule; the XLA path's VJP is the gradient).
-    if opt.use_pallas_factory is not None:
-        return opt.use_pallas_factory
-    env = os.environ.get("SPARTACUS_PALLAS", "")
-    if env != "":
-        return env != "0"
-    # Auto: only the real-TPU single-precision path (the kernel's index
-    # arithmetic is i32; x64 mode traces Python ints as i64, which
-    # Mosaic rejects, and double-precision data belongs on the XLA
-    # path anyway), and only when the kernel's full VMEM bound — scratch
-    # PLUS double-buffered pipeline windows (the round-2 crash was the
-    # windows being omitted) — fits the per-kernel request cap.  The
-    # pallas_call itself raises its Mosaic vmem_limit_bytes to the same
-    # bound, so "guard passes" implies "kernel compiles".
-    from ..ops.pallas_layer import VMEM_REQUEST_CAP, factory_vmem_bytes
-
-    nd = opt.nreg * opt.nstream
-    return (
-        jax.default_backend() == "tpu"
-        and not jax.config.jax_enable_x64
-        and factory_vmem_bytes(nd, opt.nreg) * 1.25 <= VMEM_REQUEST_CAP
-    )
-
-
-def _use_pallas_sweeps(opt: SolverOptions, lg: LegendreGauss) -> bool:
-    import os
-
-    # Explicit opt value wins over the env override (see _use_pallas).
-    if opt.use_pallas_sweeps is not None:
-        return opt.use_pallas_sweeps
-    env = os.environ.get("SPARTACUS_PALLAS_SWEEPS", "")
-    if env != "":
-        return env != "0"
-    # Auto: real-TPU f32 only, and bound the VMEM footprint — the
-    # a_below buffer is ((nreg+1)*ns)^2 rows of (8,128) tiles.
-    return (
-        jax.default_backend() == "tpu"
-        and not jax.config.jax_enable_x64
-        and (opt.nreg + 1) * lg.nstream <= 16
-    )
-
-
-def _flat(x):
-    """Merge the trailing matrix dims for storage: [..., n, m] -> [..., n*m].
-
-    TPU memory tiles the last TWO dims to (8, 128); storing small matrices
-    (n, m <= 24) unflattened wastes up to ~16x HBM and bandwidth.  A single
-    trailing axis of n*m pads only to the next multiple of 128.
-    """
-    return x.reshape(x.shape[:-2] + (x.shape[-2] * x.shape[-1],))
-
-
-def _unflat(x, n, m):
-    return x.reshape(x.shape[:-1] + (n, m))
-
-
-def _tiled_gamma_prep(dz, C, S, L, dtype, factory_chunk):
-    """Shared input prep for the fused tile-native factory path (SW + LW
-    use identical padding conventions; a fix here fixes both).
-
-    Returns (gbl, dz_bl, chunk_nb): gbl relays a [C, L, S, n, m] gamma
-    stack into the kernel's flattened batch-major order [B(+pad), L, n*m],
-    padding the C*S batch up to a TILE multiple with identity layers
-    (gamma = -I, dz = 0 => expm = I exactly, so padding elements are
-    no-ops); dz_bl is the matching padded [B(+pad), L] thickness; chunk_nb
-    is factory_chunk converted from batch elements to whole kernel tiles.
-    """
-    from ..ops.pallas_layer import TILE
-
-    B = C * S
-    pad = (-B) % TILE
-
-    def gbl(x, n, m):
-        flat = _flat(x).transpose(0, 2, 1, 3).reshape(B, L, n * m)
-        if pad:
-            eye = jnp.broadcast_to(
-                (-jnp.eye(n, m, dtype=dtype)).reshape(1, 1, n * m),
-                (pad, L, n * m),
-            )
-            flat = jnp.concatenate([flat, eye], axis=0)
-        return flat
-
-    dz_bl = jnp.broadcast_to(dz[:, None, :], (C, S, L)).reshape(B, L)
-    if pad:
-        dz_bl = jnp.concatenate([dz_bl, jnp.zeros((pad, L), dtype)], axis=0)
-    chunk_nb = max(1, factory_chunk // TILE) if factory_chunk else 0
-    return gbl, dz_bl, chunk_nb
-
-
-def _chunked_factory(fn, args, chunk: int):
-    """Run the per-layer operator factory in column chunks via lax.map to
-    bound its transient working set; outputs are returned flattened."""
-    C = jax.tree_util.tree_leaves(args)[0].shape[0]
-    if not chunk or C <= chunk or C % chunk != 0:
-        return jax.tree_util.tree_map(_flat, fn(args))
-    split = jax.tree_util.tree_map(
-        lambda x: x.reshape((C // chunk, chunk) + x.shape[1:]), args
-    )
-    out = jax.lax.map(
-        lambda a: jax.tree_util.tree_map(_flat, fn(a)), split
-    )
-    return jax.tree_util.tree_map(
-        lambda x: x.reshape((C,) + x.shape[2:]), out
-    )
-
-
-# ----------------------------------------------------------------------
-# Pallas sweep path: phases 2+3 through ops/pallas_sweep.py kernels.
-# Same math as the lax.scan path above; the clear-sky direct recurrence
-# and sunlit fractions are evaluated in closed form (cumulative products
-# over layers) instead of inside the scan.
-# ----------------------------------------------------------------------
-
-def _sw_pallas_path(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,
-                    geo, lay, zcos, sin0, with_profiles, tiled=False):
-    from ..ops import pallas_sweep as PS
-
-    nreg, ns = opt.nreg, lg.nstream
-    nd = nreg * ns
-    C, L = inp.dz.shape
-    S = inp.air_ext.shape[-1]
-    B = C * S
-    dtype = inp.air_ext.dtype
-    hw = tuple(float(x) for x in lg.hweight)
-    rmu = tuple(1.0 / float(x) for x in lg.mu)
-    rtan = tuple(float(x) for x in lg.tan_ang)
-    pad = (-B) % PS.TILE
-    interp = jax.default_backend() != "tpu"
-
-    def bl(x):
-        """[C, L, S, rows] -> [B(+pad), L, rows]."""
-        x = x.transpose(0, 2, 1, 3).reshape(B, L, x.shape[-1])
-        return PS._pad_b(x, pad)
-
-    # tiled: lay entries are already raw kernel tiles [nb, L, rows, 8, 128]
-    # from pallas_layer_tiles — hand them to the sweeps unchanged.
-    lt = (lambda x: x) if tiled else bl
-
-    def bls(x):
-        """[C, L, S] -> [B(+pad), L, 1]."""
-        return bl(x[..., None])
-
-    def blc(x):
-        """Per-column [C, L, rows] -> broadcast over S -> [B(+pad), L, rows]."""
-        rows = x.shape[-1]
-        x = jnp.broadcast_to(x[:, None], (C, S, L, rows)).reshape(B, L, rows)
-        return PS._pad_b(x, pad)
-
-    def bv(x, pad_value=0.0):
-        """[C, S, rows] -> [B(+pad), rows]."""
-        return PS._pad_b(x.reshape(B, x.shape[-1]), pad, pad_value)
-
-    galb = inp.ground_albedo
-    galb_dir = inp.ground_albedo_dir
-    roof_alb = (
-        inp.roof_albedo if opt.do_urban else jnp.zeros((C, L, S), dtype)
-    )
-    roof_alb_dir = (
-        inp.roof_albedo_dir if opt.do_urban else jnp.zeros((C, L, S), dtype)
-    )
-    zcos_cs = jnp.broadcast_to(zcos[:, None], (C, S))
-    grd_up = bv(jnp.stack([galb, galb_dir, zcos_cs], axis=-1), 1.0)
-    uov = blc(_flat(geo["u_ov"]))
-    vov = blc(_flat(geo["v_ov"]))
-
-    stacks, top = PS.sw_up_sweep(
-        lt(lay["R"]), lt(lay["T"]), lt(lay["E"]), lt(lay["Sup"]),
-        lt(lay["Sdn"]), uov, vov, bls(roof_alb), bls(roof_alb_dir), grd_up,
-        nd=nd, ns=ns, nreg=nreg, hw=hw, interpret=interp, tiled=tiled,
-    )
-    a_top = top[:B, : nd * nd].reshape(C, S, nd, nd)
-    d_top = top[:B, nd * nd:].reshape(C, S, nd, nreg)
-    hw_b = jnp.asarray(np.asarray(lg.hweight, dtype))
-    top_albedo_diff = jnp.einsum(
-        "csij,j->cs", a_top[..., :ns, :ns], hw_b, precision="highest"
-    )
-    top_albedo_dir = jnp.sum(d_top[..., :ns, 0], axis=-1) / zcos[:, None]
-    bc = {"top_albedo_diff": top_albedo_diff, "top_albedo_dir": top_albedo_dir}
-
-    # Aux scalar pack for the down sweeps
-    air_abs_coef = inp.air_ext * (1.0 - inp.air_ssa)  # [C, L, S]
-    veg_abs_coef = inp.veg_ext[..., None] * (1.0 - inp.veg_ssa)
-    wall_albedo = (
-        inp.wall_albedo if opt.do_urban else jnp.zeros((C, L, S), dtype)
-    )
-    nod = max(nreg - 1, 1)
-    fw_b = jnp.broadcast_to(geo["f_wall"][:, None], (C, S, L, nreg))
-    od_b = jnp.broadcast_to(
-        _pad_od(geo["od_scaling"])[:, None], (C, S, L, nod)
-    )
-    aux = jnp.concatenate(
-        [
-            fw_b, od_b,
-            air_abs_coef.transpose(0, 2, 1)[..., None],
-            veg_abs_coef.transpose(0, 2, 1)[..., None],
-            wall_albedo.transpose(0, 2, 1)[..., None],
-        ],
-        axis=-1,
-    ).reshape(B, L, nreg + nod + 3)
-    aux = PS._pad_b(aux, pad)
-    grd_dn = bv(zcos_cs[..., None], 1.0)
-
-    # BOTH normalizations in one fused kernel pass: each layer's operators
-    # and stacks are read from HBM once instead of once per normalization.
-    (outs_dir_bl, outs_diff_bl), (fin_dir, fin_diff) = PS.sw_down_sweep_both(
-        lt(lay["R"]), lt(lay["T"]), lt(lay["E"]), lt(lay["Sdn"]),
-        lt(lay["int_dir"]), lt(lay["int_diff"]), lt(lay["int_dir_diff"]),
-        stacks, vov, aux, grd_dn,
-        nd=nd, ns=ns, nreg=nreg, hw=hw, rmu=rmu, rtan=rtan,
-        do_urban=opt.do_urban, with_profiles=with_profiles,
-        interpret=interp, tiled=tiled,
-    )
-
-    def run_sweep(with_direct):
-        outs_bl, fin = (
-            (outs_dir_bl, fin_dir) if with_direct else (outs_diff_bl, fin_diff)
-        )
-        outs = {
-            k: v[:B].reshape(C, S, L).transpose(0, 2, 1)
-            for k, v in outs_bl.items()
-        }
-        if with_direct:
-            dn_dir_fin = fin[:B, :nreg].reshape(C, S, nreg)
-            dn_diff_fin = fin[:B, nreg:].reshape(C, S, nd)
-        else:
-            dn_dir_fin = jnp.zeros((C, S, nreg), dtype)
-            dn_diff_fin = fin[:B].reshape(C, S, nd)
-        return outs, dn_dir_fin, dn_diff_fin
-
-    # Clear-sky direct recurrence in closed form
-    # (radsurf_urban_sw.F90:804-848): suffix products over layers above
-    itr = _itransp(inp.air_ext, inp.dz)
-    air_ext_t = jnp.take_along_axis(
-        inp.air_ext, itr[:, None, None], axis=-1
-    )[..., 0]  # [C, L]
-    bf_above = jnp.concatenate(
-        [inp.building_fraction[:, 1:], jnp.zeros((C, 1), dtype)], axis=1
-    )
-    roof_fraction = jnp.maximum(0.0, inp.building_fraction - bf_above)
-    nbf = 1.0 - inp.building_fraction
-    nbf_above = 1.0 - bf_above
-    tdc = jnp.exp(-air_ext_t * inp.dz / zcos[:, None])  # trans_dir_clear
-    npw_sum = jnp.sum(geo["norm_perim_wall"], axis=-1)
-    fwdc = jnp.where(
-        nbf > opt.min_building_fraction,
-        npw_sum / (Pi * jnp.maximum(nbf, opt.min_building_fraction)),
-        0.0,
-    )
-    g_fac = (nbf / nbf_above) * tdc
-    suffix = jnp.flip(jnp.cumprod(jnp.flip(g_fac, 1), axis=1), 1)  # P[l]
-    c_in = (1.0 / zcos)[:, None] * jnp.concatenate(
-        [suffix[:, 1:], jnp.ones((C, 1), dtype)], axis=1
-    )
-    c_mid = c_in * nbf / nbf_above
-    int_dir_clear = jnp.where(
-        air_ext_t > 0.0,
-        c_mid * (1.0 - tdc) * zcos[:, None]
-        / jnp.where(air_ext_t > 0.0, air_ext_t, 1.0),
-        c_mid * inp.dz,
-    )
-    dn_dir_clear_fin = (1.0 / zcos) * suffix[:, 0]
-    eps = jnp.finfo(dtype).eps
-
-    def finalize(outs, dn_dir_fin, dn_diff_fin, with_direct):
-        # Ground fluxes (radsurf_urban_sw.F90:861-876) without
-        # materializing the [C,S,nd,nd] ground operators
-        dsum = jnp.sum(dn_diff_fin.reshape(C, S, nreg, ns), axis=-1)
-        up = galb[..., None, None] * hw_b * dsum[..., None]
-        if with_direct:
-            up = up + (
-                (zcos[:, None] * galb_dir)[..., None, None]
-                * hw_b * dn_dir_fin[..., None]
-            )
-        up_fin = up.reshape(C, S, nd)
-        ground_dn_dir = zcos[:, None] * jnp.sum(dn_dir_fin, axis=-1)
-        ground_dn = jnp.sum(dn_diff_fin, axis=-1)
-        if with_direct:
-            ground_dn = ground_dn + ground_dn_dir
-        outs["ground_dn"] = ground_dn
-        outs["ground_net"] = ground_dn - jnp.sum(up_fin, axis=-1)
-        tan_over_pi = jnp.asarray(
-            np.tile(np.asarray(lg.tan_ang, dtype), nreg) / Pi, dtype
-        )
-        outs["ground_vertical_diff"] = jnp.einsum(
-            "csj,j->cs", dn_diff_fin + up_fin, tan_over_pi,
-            precision="highest",
-        )
-        if with_direct:
-            outs["ground_dn_dir"] = ground_dn_dir
-            gdd_t = _take_spec(ground_dn_dir, itr)
-            outs["ground_sunlit_frac"] = _safe_div(
-                gdd_t, zcos * dn_dir_clear_fin
-            )
-            outs["roof_sunlit_frac"] = _safe_div(
-                _take_spec(outs["roof_in_dir"], itr) * nbf_above,
-                zcos[:, None] * c_in
-                * jnp.maximum(opt.min_building_fraction, roof_fraction),
-            )
-            if nreg > 1:
-                vb_t = _take_spec(veg_abs_coef, itr)
-                veg_abs_dir_clear = (
-                    int_dir_clear * vb_t * inp.veg_fraction
-                )
-                # Degenerate-region excision parity (see the scan path):
-                # below min fraction the sunlit fraction is exactly 0.
-                outs["veg_sunlit_frac"] = jnp.where(
-                    inp.veg_fraction >= opt.min_vegetation_fraction,
-                    _take_spec(
-                        outs["veg_abs_dir"], itr
-                    ) / jnp.maximum(eps, veg_abs_dir_clear),
-                    0.0,
-                )
-            if opt.do_urban:
-                outs["wall_sunlit_frac"] = 0.5 * _take_spec(
-                    outs["wall_in_dir"], itr
-                ) / jnp.maximum(eps, fwdc * sin0[:, None] * int_dir_clear)
-            outs["top_dn_dir"] = jnp.ones((C, S), dtype)
-            outs["top_dn"] = jnp.ones((C, S), dtype)
-            outs["top_net"] = 1.0 - top_albedo_dir
-        else:
-            outs["top_dn_dir"] = jnp.zeros((C, S), dtype)
-            outs["top_dn"] = jnp.ones((C, S), dtype)
-            outs["top_net"] = 1.0 - top_albedo_diff
-        return outs
-
-    norm_dir = finalize(*run_sweep(True), with_direct=True)
-    norm_diff = finalize(*run_sweep(False), with_direct=False)
-    return norm_dir, norm_diff, bc
-
-
-def _lw_pallas_path(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,
-                    geo, lay, wall_emissivity, roof_emissivity, roof_emission,
-                    exposed_roof, emiss_reg, emiss_air, emiss_veg, emiss_wall,
-                    with_profiles, tiled=False):
-    from ..ops import pallas_sweep as PS
-
-    nreg, ns = opt.nreg, lg.nstream
-    nd = nreg * ns
-    C, L = inp.dz.shape
-    S = inp.air_ext.shape[-1]
-    B = C * S
-    dtype = inp.air_ext.dtype
-    hw = tuple(float(x) for x in lg.hweight)
-    rmu = tuple(1.0 / float(x) for x in lg.mu)
-    rtan = tuple(float(x) for x in lg.tan_ang)
-    pad = (-B) % PS.TILE
-    interp = jax.default_backend() != "tpu"
-
-    def bl(x):
-        x = x.transpose(0, 2, 1, 3).reshape(B, L, x.shape[-1])
-        return PS._pad_b(x, pad)
-
-    def bls(x):
-        return bl(x[..., None])
-
-    def blc(x):
-        rows = x.shape[-1]
-        x = jnp.broadcast_to(x[:, None], (C, S, L, rows)).reshape(B, L, rows)
-        return PS._pad_b(x, pad)
-
-    geps = inp.ground_emissivity  # [C, S]
-    gemit = inp.ground_emission
-    frac0 = jnp.broadcast_to(
-        geo["frac"][:, 0, :][:, None], (C, S, nreg)
-    )
-    grd_up = PS._pad_b(
-        jnp.concatenate([geps[..., None], gemit[..., None], frac0], -1)
-        .reshape(B, 2 + nreg),
-        pad,
-    )
-    uov = blc(_flat(geo["u_ov"]))
-    vov = blc(_flat(geo["v_ov"]))
-
-    lt = (lambda x: x) if tiled else bl
-    stacks, top = PS.lw_up_sweep(
-        lt(lay["R"]), lt(lay["T"]), lt(lay["p"]), uov, vov,
-        bls(roof_emissivity), bls(roof_emission),
-        blc(exposed_roof[..., None]), grd_up,
-        nd=nd, ns=ns, nreg=nreg, hw=hw, interpret=interp, tiled=tiled,
-    )
-    a_top = top[:B, : nd * nd].reshape(C, S, nd, nd)
-    source_top = top[:B, nd * nd:].reshape(C, S, nd)
-    hw_b = jnp.asarray(np.asarray(lg.hweight, dtype))
-    top_emissivity = 1.0 - jnp.einsum(
-        "csij,j->cs", a_top[..., :ns, :ns], hw_b, precision="highest"
-    )
-    top_emission = jnp.sum(source_top[..., :ns], axis=-1)
-    bc = {"top_emissivity": top_emissivity, "top_emission": top_emission}
-
-    air_abs_coef = inp.air_ext * (1.0 - inp.air_ssa)
-    veg_abs_coef = inp.veg_ext[..., None] * (1.0 - inp.veg_ssa)
-    nod = max(nreg - 1, 1)
-    fw_b = jnp.broadcast_to(geo["f_wall"][:, None], (C, S, L, nreg))
-    od_b = jnp.broadcast_to(
-        _pad_od(geo["od_scaling"])[:, None], (C, S, L, nod)
-    )
-    dz_cs = inp.dz[:, :, None]  # [C, L, 1] broadcasting over S
-    sub_air = emiss_reg[..., 0] * dz_cs
-    sub_vegair = jnp.sum(emiss_air, -1) * dz_cs
-    sub_veg = jnp.sum(emiss_veg, -1) * dz_cs
-    sub_wall = emiss_wall * dz_cs
-
-    def t1(x):  # [C, L, S] -> [C, S, L, 1]
-        return x.transpose(0, 2, 1)[..., None]
-
-    aux = jnp.concatenate(
-        [
-            fw_b, od_b, t1(air_abs_coef), t1(veg_abs_coef),
-            t1(wall_emissivity), t1(sub_air), t1(sub_vegair), t1(sub_veg),
-            t1(sub_wall),
-        ],
-        axis=-1,
-    ).reshape(B, L, nreg + nod + 7)
-    aux = PS._pad_b(aux, pad)
-
-    # Both LW sweeps (internal, then incoming) in one fused kernel pass
-    # (see the SW twin): operators/stacks read from HBM once.
-    (outs_int_bl, outs_norm_bl), (fin_int, fin_norm) = PS.lw_down_sweep_both(
-        lt(lay["R"]), lt(lay["T"]), lt(lay["p"]),
-        lt(lay["int_diff"]), lt(lay["int_source"]),
-        stacks, vov, aux,
-        nd=nd, ns=ns, nreg=nreg, hw=hw, rmu=rmu, rtan=rtan,
-        do_urban=opt.do_urban, with_profiles=with_profiles,
-        interpret=interp, tiled=tiled,
-    )
-
-    def run_sweep(with_source):
-        outs_bl, fin = (
-            (outs_int_bl, fin_int) if with_source else (outs_norm_bl, fin_norm)
-        )
-        outs = {
-            k: v[:B].reshape(C, S, L).transpose(0, 2, 1)
-            for k, v in outs_bl.items()
-        }
-        dn_fin = fin[:B].reshape(C, S, nd)
-        # Ground fluxes (radsurf_urban_lw.F90:806-828) without
-        # materializing the ground operators
-        dsum = jnp.sum(dn_fin.reshape(C, S, nreg, ns), axis=-1)
-        up = (1.0 - geps)[..., None, None] * hw_b * dsum[..., None]
-        if with_source:
-            up = up + (
-                gemit[..., None, None] * frac0[..., None] * hw_b
-            )
-        up_fin = up.reshape(C, S, nd)
-        outs["ground_dn"] = jnp.sum(dn_fin, axis=-1)
-        outs["ground_net"] = outs["ground_dn"] - jnp.sum(up_fin, axis=-1)
-        tan_over_pi = jnp.asarray(
-            np.tile(np.asarray(lg.tan_ang, dtype), nreg) / Pi, dtype
-        )
-        outs["ground_vertical_diff"] = jnp.einsum(
-            "csj,j->cs", dn_fin + up_fin, tan_over_pi, precision="highest"
-        )
-        if with_source:
-            outs["top_dn"] = jnp.zeros((C, S), dtype)
-            outs["top_net"] = -top_emission
-        else:
-            outs["top_dn"] = jnp.ones((C, S), dtype)
-            outs["top_net"] = top_emissivity
-        return outs
-
-    return run_sweep(True), run_sweep(False), bc
-
-
 # ----------------------------------------------------------------------
 # Longwave solver
 # ----------------------------------------------------------------------
@@ -1391,43 +837,8 @@ def _spartacus_lw_impl(inp: CanopyInputs, opt: SolverOptions,
     )
     dz_b = jnp.broadcast_to(inp.dz[:, :, None], (C, L, S))
 
-    use_pf = _use_pallas(opt)
-    use_ps = _use_pallas_sweeps(opt, lg) and not opt.associative_sweeps
-    lw_tiled = use_pf and use_ps
-    if lw_tiled:
-        # Fused tile-native path (see the SW twin above): one gamma
-        # relayout in, raw tiles out, zero factory->sweep copies.
-        from ..ops.pallas_layer import pallas_lw_layer_tiles
-
-        gbl, dz_bl, chunk_nb = _tiled_gamma_prep(
-            inp.dz, C, S, L, dtype, opt.factory_chunk
-        )
-        lay = pallas_lw_layer_tiles(
-            gbl(g1m, nd, nd), gbl(g2m, nd, nd),
-            gbl(em["emiss_rate"][..., None], nd, 1), dz_bl,
-            nd=nd, n_double=opt.n_double, chunk_nb=chunk_nb,
-        )
-    else:
-        if use_pf:
-            from ..ops.pallas_layer import pallas_lw_layer_matrices
-
-            lw_factory_fn = pallas_lw_layer_matrices
-        else:
-            lw_factory_fn = lw_layer_matrices
-
-        def _lw_factory(a):
-            g1a, g2a, ema, dza = a
-            out = lw_factory_fn(g1a, g2a, ema, dza, n_double=opt.n_double)
-            # keep vector outputs unflattened; _chunked_factory flattens the
-            # trailing TWO dims, so lift vectors to [..., n, 1] first
-            out["p"] = out["p"][..., None]
-            out["int_source"] = out["int_source"][..., None]
-            return out
-
-        lay = _chunked_factory(
-            _lw_factory, (g1m, g2m, em["emiss_rate"], dz_b),
-            opt.factory_chunk
-        )
+    lay = lw_layer_matrices(g1m, g2m, em["emiss_rate"], dz_b,
+                            n_double=opt.n_double)
 
     # Emission bookkeeping (radsurf_urban_lw.F90:446-477)
     emiss_factor = 2.0 * float(np.sum(hw / mu))
@@ -1478,18 +889,9 @@ def _spartacus_lw_impl(inp: CanopyInputs, opt: SolverOptions,
     )
     exposed_roof = jnp.maximum(0.0, inp.building_fraction - bf_above)
 
-    if use_ps:
-        return _lw_pallas_path(
-            inp, opt, lg, geo, lay, wall_emissivity, roof_emissivity,
-            roof_emission, exposed_roof, emiss_reg, emiss_air, emiss_veg,
-            emiss_wall, with_profiles, tiled=lw_tiled,
-        )
-
     def up_step(carry, x):
         a_above, source_above = carry
-        Rf, Tf, p, u_ov, v_ov, reps, remit, exposed = x
-        R = _unflat(Rf, nd, nd)
-        T = _unflat(Tf, nd, nd)
+        R, T, p, u_ov, v_ov, reps, remit, exposed = x
         eye = jnp.eye(nd, dtype=dtype)
         denom = eye - matmul(a_above, R)
         at = solve(denom, matmul(a_above, T))
@@ -1507,16 +909,15 @@ def _spartacus_lw_impl(inp: CanopyInputs, opt: SolverOptions,
         source_below = jnp.concatenate([source_below_reg, source_roof], -1)
         a_above_new = _u_mat_v(u_ov, a_below, v_ov, ns)
         source_above_new = _u_vec(u_ov, source_below, ns)
-        ys = (_flat(a_above), source_above, _flat(denom), _flat(a_below),
-              source_below)
+        ys = (a_above, source_above, denom, a_below, source_below)
         return (a_above_new, source_above_new), ys
 
     xs = (
-        lay["R"].transpose(1, 0, 2, 3),
-        lay["T"].transpose(1, 0, 2, 3),
-        lay["p"].transpose(1, 0, 2, 3),
-        geo["u_ov"].transpose(1, 0, 2, 3),
-        geo["v_ov"].transpose(1, 0, 2, 3),
+        lay["R"].swapaxes(0, 1),
+        lay["T"].swapaxes(0, 1),
+        lay["p"].swapaxes(0, 1),
+        geo["u_ov"].swapaxes(0, 1),
+        geo["v_ov"].swapaxes(0, 1),
         roof_emissivity.transpose(1, 0, 2),
         roof_emission.transpose(1, 0, 2),
         exposed_roof.transpose(1, 0),
@@ -1531,7 +932,7 @@ def _spartacus_lw_impl(inp: CanopyInputs, opt: SolverOptions,
         )
 
         elems = lw_layer_star_elements(
-            _unflat(xs[0], nd, nd), _unflat(xs[1], nd, nd), xs[2],
+            xs[0], xs[1], xs[2],
             xs[3], xs[4],
             (1.0 - xs[5])[..., None, None]
             * (hw[:, None] * jnp.ones((ns, ns), dtype)),
@@ -1565,15 +966,9 @@ def _spartacus_lw_impl(inp: CanopyInputs, opt: SolverOptions,
     def sweep(with_source: bool):
         def down_step(carry, x):
             dn = carry
-            (Rf, Tf, p, int_difff, int_source, a_abovef, source_above,
-             denomf, a_belowf, source_below, u_ov, v_ov, fw, od_l, ab_coef,
+            (R, T, p, int_diff, int_source, a_above, source_above,
+             denom, a_below, source_below, u_ov, v_ov, fw, od_l, ab_coef,
              vb_coef, weps, er, ea, ev, ew, dz_l) = x
-            R = _unflat(Rf, nd, nd)
-            T = _unflat(Tf, nd, nd)
-            int_diff = _unflat(int_difff, nd, nd)
-            a_above = _unflat(a_abovef, nd, nd)
-            denom = _unflat(denomf, nd, nd)
-            a_below = _unflat(a_belowf, (nreg + 1) * ns, (nreg + 1) * ns)
             dn_below = _ov_vec(v_ov, dn, ns)  # [C, S, (nreg+1)ns]
             up_below = matvec(a_below, dn_below)
             if with_source:
@@ -1636,22 +1031,22 @@ def _spartacus_lw_impl(inp: CanopyInputs, opt: SolverOptions,
             dn0 = dn0.at[..., :ns].set(jnp.broadcast_to(hw_b, (C, S, ns)))
 
         xs_sweep = (
-            lay["R"].transpose(1, 0, 2, 3),
-            lay["T"].transpose(1, 0, 2, 3),
-            lay["p"].transpose(1, 0, 2, 3),
-            lay["int_diff"].transpose(1, 0, 2, 3),
-            lay["int_source"].transpose(1, 0, 2, 3),
+            lay["R"].swapaxes(0, 1),
+            lay["T"].swapaxes(0, 1),
+            lay["p"].swapaxes(0, 1),
+            lay["int_diff"].swapaxes(0, 1),
+            lay["int_source"].swapaxes(0, 1),
             a_above_l, source_above_l, denom_l, a_below_l, source_below_l,
-            geo["u_ov"].transpose(1, 0, 2, 3),
-            geo["v_ov"].transpose(1, 0, 2, 3),
+            geo["u_ov"].swapaxes(0, 1),
+            geo["v_ov"].swapaxes(0, 1),
             geo["f_wall"].transpose(1, 0, 2),
             _pad_od(geo["od_scaling"]).transpose(1, 0, 2),
             air_abs_coef.transpose(1, 0, 2),
             veg_abs_coef.transpose(1, 0, 2),
             wall_emissivity.transpose(1, 0, 2),
-            emiss_reg.transpose(1, 0, 2, 3),
-            emiss_air.transpose(1, 0, 2, 3),
-            emiss_veg.transpose(1, 0, 2, 3),
+            emiss_reg.swapaxes(0, 1),
+            emiss_air.swapaxes(0, 1),
+            emiss_veg.swapaxes(0, 1),
             emiss_wall.transpose(1, 0, 2),
             inp.dz.transpose(1, 0),
         )
@@ -1660,17 +1055,16 @@ def _spartacus_lw_impl(inp: CanopyInputs, opt: SolverOptions,
             # in the B slot over a frozen width-1 channel pinned at 1.
             from ..ops.assoc_adding import affine_down_carries
 
-            Tl = _unflat(xs_sweep[1], nd, nd)
-            denom_u = _unflat(denom_l, nd, nd)
-            v_reg = geo["v_ov"].transpose(1, 0, 2, 3)[..., :nreg, :]
+            v_reg = geo["v_ov"].swapaxes(0, 1)[..., :nreg, :]
             TVr = jnp.einsum(
-                "lcsirn,lcrq->lcsiqn", Tl.reshape(L, C, S, nd, nreg, ns),
+                "lcsirn,lcrq->lcsiqn",
+                xs_sweep[1].reshape(L, C, S, nd, nreg, ns),
                 v_reg, precision="highest",
             ).reshape(L, C, S, nd, nd)
-            Cmap = solve(denom_u, TVr)
+            Cmap = solve(denom_l, TVr)
             if with_source:
-                Bmap = solve(denom_u, matvec(
-                    _unflat(xs_sweep[0], nd, nd), source_above_l
+                Bmap = solve(denom_l, matvec(
+                    xs_sweep[0], source_above_l
                 ) + xs_sweep[2])[..., None]
             else:
                 Bmap = jnp.zeros((L, C, S, nd, 1), dtype)
@@ -1733,32 +1127,27 @@ def _pad_columns(inp: CanopyInputs, pad: int) -> CanopyInputs:
     return replace(inp, **kw)
 
 
-# AUTO column-chunk target (measured optimum on v5e, round 4: 2048-column
-# chunks beat both the unchunked whole batch and smaller 512 chunks; see
-# SolverOptions.column_chunk).
-_AUTO_COLUMN_CHUNK = 2048
-
-
-def _resolve_column_chunk(opt: SolverOptions, lg, C: int, S: int = 1) -> int:
-    """Resolve the column_chunk sentinel: -1 = AUTO picks an even split
-    near the measured optimum on the fused kernel path, no chunking
-    elsewhere.  The optimum is ~2048 columns for few-band runs and ~8k
-    flattened C*S batch elements for multiband (v5e, round 4: rami5's
-    62-layer x 14-band shape runs 4.2k cols/s unchunked, 6.1k at
-    512-column chunks; 2048/8 = 2.18M vs 1.70M on the 1-band headline)."""
+def _resolve_column_chunk(opt: SolverOptions, lg, C: int, L: int, S: int,
+                          itemsize: int) -> int:
+    """Resolve the column_chunk sentinel: -1 = AUTO picks the fewest even
+    chunks whose working set fits the device's memory share
+    (utils/memory.py), and no chunking where the device reports no memory
+    limit (the CPU backend)."""
     ck = opt.column_chunk
     if ck != -1:
         return ck
-    target = min(_AUTO_COLUMN_CHUNK, max(1, 8192 // max(S, 1)))
-    if C <= target or not (_use_pallas(opt) and _use_pallas_sweeps(opt, lg)):
+    limit = memory.device_bytes_limit()
+    if limit is None:
         return 0
-    n_chunks = -(-C // target)
-    return -(-C // n_chunks)
+    per_col = memory.solve_bytes_per_column(opt.nreg, lg.nstream, L, S,
+                                            itemsize)
+    return memory.even_chunk(C, int(memory.SOLVE_SHARE * limit) // per_col)
 
 
 def _chunked_solve(impl, inp, opt, lg, with_profiles):
-    C = inp.dz.shape[0]
-    ck = _resolve_column_chunk(opt, lg, C, inp.air_ext.shape[-1])
+    C, L = inp.dz.shape
+    ck = _resolve_column_chunk(opt, lg, C, L, inp.air_ext.shape[-1],
+                               inp.air_ext.dtype.itemsize)
     if not ck or C <= ck:
         return impl(inp, opt, lg, with_profiles)
     pad = (-C) % ck
@@ -1771,58 +1160,6 @@ def _chunked_solve(impl, inp, opt, lg, with_profiles):
     return jax.tree_util.tree_map(
         lambda x: jnp.reshape(x, (n_chunks * ck,) + x.shape[2:])[:C], out
     )
-
-
-# Differentiability of the Pallas path: the hand-written kernels have no
-# automatic VJP, but they compute the same function as the XLA path to f32
-# rounding, so the XLA path's VJP IS the gradient.  custom_vjp: primal =
-# Pallas kernels, backward = jax.vjp of the XLA path (recomputes the
-# primal there — paid only when differentiating).
-
-def _xla_only(opt: SolverOptions) -> SolverOptions:
-    from dataclasses import replace
-
-    return replace(opt, use_pallas_factory=False, use_pallas_sweeps=False)
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(1, 2, 3))
-def _sw_diff(inp, opt, lg, with_profiles):
-    return _spartacus_sw_impl(inp, opt, lg, with_profiles)
-
-
-def _sw_diff_fwd(inp, opt, lg, with_profiles):
-    return _sw_diff(inp, opt, lg, with_profiles), inp
-
-
-def _sw_diff_bwd(opt, lg, with_profiles, inp, ct):
-    _, vjp = jax.vjp(
-        lambda a: _spartacus_sw_impl(a, _xla_only(opt), lg, with_profiles),
-        inp,
-    )
-    return vjp(ct)
-
-
-_sw_diff.defvjp(_sw_diff_fwd, _sw_diff_bwd)
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(1, 2, 3))
-def _lw_diff(inp, opt, lg, with_profiles):
-    return _spartacus_lw_impl(inp, opt, lg, with_profiles)
-
-
-def _lw_diff_fwd(inp, opt, lg, with_profiles):
-    return _lw_diff(inp, opt, lg, with_profiles), inp
-
-
-def _lw_diff_bwd(opt, lg, with_profiles, inp, ct):
-    _, vjp = jax.vjp(
-        lambda a: _spartacus_lw_impl(a, _xla_only(opt), lg, with_profiles),
-        inp,
-    )
-    return vjp(ct)
-
-
-_lw_diff.defvjp(_lw_diff_fwd, _lw_diff_bwd)
 
 
 def _coerce_dtype(inp: CanopyInputs) -> CanopyInputs:
@@ -1852,8 +1189,7 @@ def _sanitize_forest(inp: CanopyInputs, opt: SolverOptions) -> CanopyInputs:
     files may carry -1 sentinels in building_fraction for forest columns,
     which would otherwise corrupt region fractions, perimeters, roof
     fractions and the clear-sky sunlit recurrences.  Zeroing ONCE here
-    keeps every downstream path (XLA scan, Pallas factory, Pallas sweeps)
-    consistent."""
+    keeps every downstream path (scan and associative sweeps) consistent."""
     if opt.do_urban or inp.building_fraction is None:
         return inp
     from dataclasses import replace
@@ -1867,12 +1203,9 @@ def _sanitize_forest(inp: CanopyInputs, opt: SolverOptions) -> CanopyInputs:
 def spartacus_sw(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,
                  with_profiles: bool = False):
     """Shortwave solve; see _spartacus_sw_impl.  Honors opt.column_chunk;
-    reverse-mode differentiable on both the XLA and Pallas paths."""
-    impl = (
-        _sw_diff if (_use_pallas(opt) or _use_pallas_sweeps(opt, lg))
-        else _spartacus_sw_impl
-    )
-    return _chunked_solve(impl, _coerce_dtype(_sanitize_forest(inp, opt)),
+    reverse-mode differentiable."""
+    return _chunked_solve(_spartacus_sw_impl,
+                          _coerce_dtype(_sanitize_forest(inp, opt)),
                           opt, lg, with_profiles)
 
 
@@ -1880,10 +1213,7 @@ def spartacus_sw(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,
 def spartacus_lw(inp: CanopyInputs, opt: SolverOptions, lg: LegendreGauss,
                  with_profiles: bool = False):
     """Longwave solve; see _spartacus_lw_impl.  Honors opt.column_chunk;
-    reverse-mode differentiable on both the XLA and Pallas paths."""
-    impl = (
-        _lw_diff if (_use_pallas(opt) or _use_pallas_sweeps(opt, lg))
-        else _spartacus_lw_impl
-    )
-    return _chunked_solve(impl, _coerce_dtype(_sanitize_forest(inp, opt)),
+    reverse-mode differentiable."""
+    return _chunked_solve(_spartacus_lw_impl,
+                          _coerce_dtype(_sanitize_forest(inp, opt)),
                           opt, lg, with_profiles)

@@ -1,10 +1,10 @@
 """Per-layer reflectance/transmittance/source factory — the hot kernel.
 
-This is the TPU-native replacement for the reference's eigen-decomposition
+This replaces the reference's eigen-decomposition
 route (radtool/radtool_calc_matrices_sw_eig.F90:30-298,
 radtool_calc_matrices_lw_eig.F90:32-230, radtool_eigen_decomposition.F90):
 instead of a branch-heavy batched QR eigensolver, we use a fully branch-free
-algorithm built only from batched matmuls and pivot-free LU solves:
+algorithm built only from batched matmuls and LU solves:
 
   1. Assemble the full two-point boundary-value Gamma matrix
          Gamma = [ -g1  -g2  -g3 ]
@@ -46,7 +46,7 @@ with int_diff = g2i - g1i, int_dir = -g0i, int_dir_diff = 2 g3i
 radtool_calc_matrices_lw_eig.F90:213-228, re-expressed in convergence form).
 
 Everything is batched over arbitrary leading dims (columns x layers x
-spectral intervals) — this is where the TPU earns its keep.
+spectral intervals) — the batch the accelerator works on.
 """
 
 from __future__ import annotations
@@ -64,10 +64,7 @@ from .matrix import expm_pade7, inv, matmul, solve
 # i.e. at f32 rounding; a smaller theta buys accuracy f32 cannot carry at
 # the cost of one extra doubling step per element — ~12% of factory FLOPs
 # at nd=12).  The f64 path keeps theta = 2 (truncation ~2e-11) because it
-# doubles as the accuracy oracle and the reference-grade CLI path.  The
-# Pallas kernels use the same dtype-dependent choice, so within one
-# precision ALL paths pick the SAME K per element and agree to plain
-# rounding.
+# doubles as the accuracy oracle and the reference-grade CLI path.
 PADE7_THETA_F32 = 3.9
 PADE7_THETA_F64 = 2.0
 
@@ -158,8 +155,7 @@ def layer_matrices(
         axis=-2,
     ) * dz[..., None, None]
 
-    # Norm-adaptive scaling, per batch element (same policy as the Pallas
-    # kernel): K = ceil(log2(||Gamma dz||_inf / theta)) clipped to
+    # Norm-adaptive scaling, per batch element: K = ceil(log2(||Gamma dz||_inf / theta)) clipped to
     # [0, n_double].  A fixed K = n_double (the pre-round-3 behaviour)
     # over-scales thin layers and the extra doublings amplify f32 rounding
     # ~40x (measured: T/E error 6.9e-4 fixed vs 1.6e-5 adaptive against an
@@ -195,8 +191,7 @@ def layer_matrices(
 
     # Per-element doubling count: n_double steps with a masked commit
     # (j >= K leaves the element unchanged).  The bound stays static so the
-    # loop lowers to a scan and remains reverse-mode differentiable (this
-    # path is the custom_vjp backward for the Pallas kernels).
+    # loop lowers to a scan and remains reverse-mode differentiable.
     def _dbl(j, lay_j):
         new = combine_layers(lay_j, lay_j)
         m = (j < n_k)[..., None, None]

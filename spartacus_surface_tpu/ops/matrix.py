@@ -1,21 +1,21 @@
-"""Batched small-matrix algebra for the SPARTACUS layer kernels.
+"""Batched small-matrix algebra for the SPARTACUS layer operators.
 
-TPU-native replacement for the reference's hand-written batched matrix
-library (radtool/radtool_matrix.F90).  All operations act on arrays shaped
+Replacement for the reference's hand-written batched matrix library
+(radtool/radtool_matrix.F90).  All operations act on arrays shaped
 [..., n, m] with arbitrary leading batch dimensions (the reference instead
-carries the batch innermost for CPU SIMD, radtool_matrix.F90:20-24; on TPU we
-keep the batch leading and let XLA tile it across lanes, with a Pallas path
-for the hot composite kernel in ops/layer_matrices.py).
+carries the batch innermost for CPU SIMD, radtool_matrix.F90:20-24; here
+the batch leads and XLA spreads it over the device).
 
-The LU solver is pivot-free by design, matching the reference's choice
-(radtool_matrix.F90:982-1015): the SPARTACUS matrices are diagonally dominant
-by construction, and a pivot-free unrolled elimination is branch-free, which
-is exactly what the TPU VPU wants.
+Solves go to jnp.linalg.solve (partial-pivoting LU) on every backend, so
+the CPU tests exercise the route the GPU runs.  The reference's own LU is
+pivot-free (radtool_matrix.F90:982-1015; the SPARTACUS matrices are
+diagonally dominant), and pivoting only ever improves accuracy.  An
+unrolled pivot-free elimination was the earlier route; on an NVIDIA H100
+it ran slower at every size the solver uses and compiled 20-120x slower
+(PERF.md, "solve route").
 """
 
 from __future__ import annotations
-
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -31,59 +31,13 @@ def matvec(a, x):
     return jnp.einsum("...nk,...k->...n", a, x, precision="highest")
 
 
-def _lu_factor_nopiv(a):
-    """Doolittle LU without pivoting, unrolled over the (static) order.
-
-    Returns the combined LU matrix (unit lower triangle implicit).
-    Parity: radtool/radtool_matrix.F90:982-1015 (lu_factorization).
-    """
-    n = a.shape[-1]
-    for k in range(n - 1):
-        inv_piv = 1.0 / a[..., k, k]
-        col = a[..., k + 1 :, k] * inv_piv[..., None]  # multipliers
-        a = a.at[..., k + 1 :, k].set(col)
-        a = a.at[..., k + 1 :, k + 1 :].add(
-            -col[..., :, None] * a[..., k : k + 1, k + 1 :]
-        )
-    return a
-
-
-def _lu_solve_nopiv(lu, b):
-    """Solve with a factored LU; b is [..., n, m].
-
-    Parity: radtool/radtool_matrix.F90:1024-1055 (lu_substitution).
-    """
-    n = lu.shape[-1]
-    # Forward substitution (unit lower)
-    for i in range(1, n):
-        b = b.at[..., i, :].add(
-            -jnp.einsum(
-                "...k,...km->...m", lu[..., i, :i], b[..., :i, :], precision="highest"
-            )
-        )
-    # Back substitution
-    b = b.at[..., n - 1, :].multiply(1.0 / lu[..., n - 1, n - 1][..., None])
-    for i in range(n - 2, -1, -1):
-        rhs = b[..., i, :] - jnp.einsum(
-            "...k,...km->...m", lu[..., i, i + 1 :], b[..., i + 1 :, :],
-            precision="highest",
-        )
-        b = b.at[..., i, :].set(rhs / lu[..., i, i][..., None])
-    return b
-
-
 @jax.jit
 def solve(a, b):
     """Batched solve a @ x = b.
 
     a: [..., n, n]; b: [..., n, m] (matrix RHS) or [..., n] (vector RHS).
-
-    On TPU this uses the pivot-free unrolled elimination matching the
-    reference's deliberate choice (the SPARTACUS matrices are diagonally
-    dominant; radtool_matrix.F90:982-1015) — branch-free and VPU-friendly.
-    On CPU (tests, development) it defers to LAPACK via jnp.linalg.solve,
-    which compiles orders of magnitude faster; pivoting only ever improves
-    accuracy.
+    Orders 1 and 2 are solved in closed form, larger ones by
+    jnp.linalg.solve (see the module docstring).
     Parity: solve_mat/solve_vec dispatchers radtool/radtool_matrix.F90:1119-1199.
     """
     a = jnp.asarray(a)
@@ -95,11 +49,8 @@ def solve(a, b):
         x = b / a[..., :, :1]
     elif a.shape[-1] == 2:
         x = _solve2(a, b)
-    elif jax.default_backend() == "cpu":
-        x = jnp.linalg.solve(a, b)
     else:
-        lu = _lu_factor_nopiv(a)
-        x = _lu_solve_nopiv(lu, b)
+        x = jnp.linalg.solve(a, b)
     return x[..., 0] if vector else x
 
 
@@ -113,16 +64,11 @@ def _solve2(a, b):
 
 
 def inv(a):
-    """Batched inverse via the pivot-free LU (radtool_matrix.F90:1057-1116)."""
+    """Batched inverse via solve (radtool_matrix.F90:1057-1116)."""
     a = jnp.asarray(a)
     n = a.shape[-1]
     eye = jnp.broadcast_to(jnp.eye(n, dtype=a.dtype), a.shape)
     return solve(a, eye)
-
-
-def identity_like(a):
-    n = a.shape[-1]
-    return jnp.broadcast_to(jnp.eye(n, dtype=a.dtype), a.shape)
 
 
 # Pade-7 numerator coefficients (as in the diagonal Pade approximant used for
@@ -149,8 +95,3 @@ def expm_pade7(a):
     u = matmul(a, b[7] * a6 + b[5] * a4 + b[3] * a2 + b[1] * eye)
     v = b[6] * a6 + b[4] * a4 + b[2] * a2 + b[0] * eye
     return solve(v - u, v + u)
-
-
-@functools.lru_cache(maxsize=None)
-def _eye(n, dtype_name):
-    return jnp.eye(n, dtype=dtype_name)

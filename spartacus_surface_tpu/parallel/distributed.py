@@ -1,24 +1,28 @@
 """Multi-host distributed execution scaffolding.
 
 The reference's only parallelism is shared-memory OpenMP over column blocks
-(driver/spartacus_surface_driver.F90:199-234).  The pod-scale equivalent:
+(driver/spartacus_surface_driver.F90:199-234).  The multi-process
+equivalent:
 
-  1. `initialize()` — jax.distributed bootstrap (no-op single-host);
+  1. `initialize()` — jax.distributed bootstrap, one card per process
+     (no-op for a single process);
   2. each host reads ITS OWN slice of the input columns
      (`host_column_slice`), so the input pipeline scales with hosts;
   3. the global column axis is sharded over all devices of all hosts via
      `make_global_mesh` + `jax.make_array_from_process_local_data`;
   4. the solve is SPMD with zero collectives (no inter-column coupling);
   5. diagnostics reduce with jnp.sum over sharded arrays (XLA inserts the
-     psum over ICI/DCN), mirroring the reference's serial post-processing
+     cross-device sum), mirroring the reference's serial post-processing
      (driver/spartacus_surface_driver.F90:250-296).
 
-Weak-scaling expectation: >= 90% efficiency (BASELINE.md) because steps 3-4
-involve no cross-device traffic at all; only step 5's scalar reductions and
-any output gathers cross hosts.
+Steps 3-4 involve no cross-device traffic at all; only step 5's scalar
+reductions and any output gathers cross devices.
 """
 
 from __future__ import annotations
+
+import os
+import subprocess
 
 import jax
 import numpy as np
@@ -26,15 +30,48 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 
 def initialize(coordinator_address=None, num_processes=None, process_id=None):
-    """Bootstrap the JAX distributed runtime (multi-host).  A no-op for
-    single-process runs."""
+    """Bootstrap the JAX distributed runtime (multi-process).  A no-op for
+    single-process runs.  Each process binds one local GPU (see
+    local_device_ids), so processes sharing a host never open each
+    other's cards."""
     if num_processes is None or num_processes <= 1:
         return
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
         num_processes=num_processes,
         process_id=process_id,
+        local_device_ids=local_device_ids(process_id, num_processes,
+                                          count_local_gpus()),
     )
+
+
+def local_device_ids(process_id, num_processes, n_local: int):
+    """The local devices process `process_id` binds: one card each, round
+    robin over the host's n_local cards (ranks are assumed contiguous per
+    host, as launchers number them).  None = bind nothing — a single
+    process, no cards (CPU runs), or the rank unknown (a cluster launcher
+    that JAX auto-detects)."""
+    if process_id is None or num_processes is None or num_processes <= 1:
+        return None
+    if n_local <= 0:
+        return None
+    return [process_id % n_local]
+
+
+def count_local_gpus() -> int:
+    """Number of NVIDIA GPUs this process may use, found without starting
+    a JAX backend (jax.distributed.initialize must come first):
+    CUDA_VISIBLE_DEVICES when set, else `nvidia-smi -L`; 0 without
+    either."""
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if visible is not None:
+        return len([v for v in visible.split(",") if v.strip()])
+    try:
+        listing = subprocess.run(["nvidia-smi", "-L"], capture_output=True,
+                                 text=True, timeout=60).stdout
+    except (OSError, subprocess.TimeoutExpired):
+        return 0
+    return sum(line.startswith("GPU ") for line in listing.splitlines())
 
 
 def shutdown() -> None:
@@ -59,7 +96,7 @@ def barrier(name: str, timeout_s: int = 600) -> None:
     Preferred over multihost_utils.sync_global_devices for control-flow
     sync (e.g. "all shards written"): it is a pure KV-store rendezvous
     with a configurable timeout, whereas a device-collective barrier
-    rides gloo/ICI with a short (~30 s) setup deadline that trips when
+    has a short (~30 s) setup deadline that trips when
     processes reach it at different times (uneven column counts make
     compile times genuinely different per process)."""
     if jax.process_count() <= 1:

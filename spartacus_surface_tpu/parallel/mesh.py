@@ -3,7 +3,7 @@
 The column axis is embarrassingly parallel — the reference has no
 inter-column coupling anywhere (radsurf/radsurf_interface.F90:105-313) and
 parallelizes with OpenMP over column blocks
-(driver/spartacus_surface_driver.F90:199-234).  The TPU-native equivalent is
+(driver/spartacus_surface_driver.F90:199-234).  The equivalent here is
 a 1-D jax.sharding Mesh over all devices with every [C, ...] input sharded
 along the leading column axis: the jitted solvers then run SPMD with zero
 collectives in the hot path (XLA inserts none because no cross-column
@@ -29,7 +29,7 @@ def make_mesh(n_devices: int | None = None, devices=None) -> Mesh:
                     f"requested a {n_devices}-device mesh but only"
                     f" {len(devices)} devices are visible; run under"
                     " XLA_FLAGS=--xla_force_host_platform_device_count="
-                    f"{n_devices} (virtual CPU) or on a larger slice"
+                    f"{n_devices} (virtual CPU) or on a host with more devices"
                 )
             devices = devices[:n_devices]
     return Mesh(np.asarray(devices), ("columns",))

@@ -12,7 +12,7 @@ be resident host arrays and outputs are accumulated then concatenated, so
 the host holds roughly 2x the output size at peak.)
 
 The reference has no analogue (it is an in-core OpenMP loop,
-driver/spartacus_surface_driver.F90:199-234); this is the TPU-native
+driver/spartacus_surface_driver.F90:199-234); this is the accelerator
 equivalent of processing an unbounded column axis through a fixed-size
 device.
 """
@@ -76,8 +76,7 @@ def stream_columns(solve, arrays, chunk: int, depth: int = 2):
         if len(inflight) >= depth:
             # Fetch the oldest chunk; blocks only on work enqueued >= depth
             # chunks ago, so the device pipeline stays full.  One batched
-            # device_get per chunk (not per leaf): leaf-by-leaf fetches
-            # pay a round trip each, which dominates on relay links.
+            # device_get per chunk, not one transfer per leaf.
             parts.append(jax.device_get(inflight.pop(0)))
     parts.extend(jax.device_get(x) for x in inflight)
     return _concat_leaves(parts)

@@ -56,22 +56,21 @@ class Config:
     lg_lw_forest: object = field(default=None, repr=False)
     lg_lw_urban: object = field(default=None, repr=False)
 
-    # Doubling-step CAP for the matrix-exponential layer kernel
-    # (TPU-native replacement for the reference's eigen-decomposition;
+    # Doubling-step CAP for the matrix-exponential layer factory
+    # (this build's replacement for the reference's eigen-decomposition;
     # no reference equivalent).  The factory picks K per element from
     # the Gamma norm; 2*2**n_double bounds the per-layer optical
     # thickness handled at full accuracy (30 covers horizon-sun wall
     # terms, ~1e9).
     n_double: int = 30
 
-    # Solve in column chunks of this size: the TPU-native generalization
-    # of the reference driver's `nblocksize` OpenMP blocking
-    # (driver/spartacus_surface_config.F90:24-25) — it bounds the on-chip
-    # HBM working set so 1M+ column datasets fit on one chip, and ~2k
-    # chunks are a measured throughput WIN on the fused kernel path.
-    # -1 (default) = AUTO (pick the measured optimum, per shard when the
-    # run is sharded over a mesh); 0 = no chunking (whole batch in one
-    # pass); N > 0 = explicit chunk size.  Namelist-extension parameter;
+    # Solve in column chunks of this size: the generalization of the
+    # reference driver's `nblocksize` OpenMP blocking
+    # (driver/spartacus_surface_config.F90:24-25) — it bounds the device
+    # working set so 1M+ column datasets fit on one device.
+    # -1 (default) = AUTO (the fewest chunks that fit the device memory,
+    # utils/memory.py; per shard when the run is sharded over a mesh);
+    # 0 = no chunking (whole batch in one pass); N > 0 = explicit size.  Namelist-extension parameter;
     # also settable via the CLI --column-chunk flag.
     column_chunk: int = -1
 

@@ -5,12 +5,12 @@ The reference brackets every significant routine with
 used e.g. at radsurf/radsurf_interface.F90:83,315) and times the solver loop
 with omp_get_wtime (driver/spartacus_surface_driver.F90:195,264-268).
 
-TPU-native equivalents provided here:
+Equivalents provided here:
   * `hook(name)`: context manager accumulating wall time per region (a
     no-op unless enabled, like lhook);
   * `annotate(name)`: jax.profiler.TraceAnnotation so regions show up in
-    TPU profiler traces (plus jax.named_scope inside jit);
-  * `start_trace(dir)` / `stop_trace()`: full XLA/TPU trace capture.
+    JAX profiler traces (plus jax.named_scope inside jit);
+  * `start_trace(dir)` / `stop_trace()`: full XLA device trace capture.
 """
 
 from __future__ import annotations

@@ -26,8 +26,7 @@ from tests.test_solver_conservation import add_lw, make_inputs
 def _opts(urban, nreg=2, ns=2, assoc=False):
     return SolverOptions(
         nreg=nreg, nstream=ns, do_urban=urban, n_double=8,
-        associative_sweeps=assoc, use_pallas_factory=False,
-        use_pallas_sweeps=False,
+        associative_sweeps=assoc,
     )
 
 

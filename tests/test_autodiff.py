@@ -159,23 +159,3 @@ def test_grad_through_run_radsurf():
             fd[c, l] = (float(loss(jnp.asarray(pert))) - base) / eps
     np.testing.assert_allclose(np.asarray(grad), fd, rtol=5e-4,
                                atol=1e-6 * max(1.0, abs(base)))
-
-
-def test_grad_survives_pallas_env_override(monkeypatch):
-    """SPARTACUS_PALLAS=1 must not break jax.grad: the custom_vjp backward
-    pins the XLA path via explicit opt fields, which take precedence over
-    the env force-override (advisor finding, round 1)."""
-    monkeypatch.setenv("SPARTACUS_PALLAS", "1")
-    monkeypatch.setenv("SPARTACUS_PALLAS_SWEEPS", "1")
-    rng = np.random.default_rng(7)
-    inp = make_inputs(rng, C=2, L=2, S=1, urban=False)
-    opt = SolverOptions(nreg=2, nstream=2, do_urban=False, n_double=4)
-    lg = LegendreGauss(2)
-
-    def albedo(veg_ext):
-        probe = dataclasses.replace(inp, veg_ext=veg_ext)
-        _, _, bc = spartacus_sw(probe, opt, lg)
-        return jnp.sum(bc["top_albedo_dir"])
-
-    g = jax.grad(albedo)(jnp.asarray(inp.veg_ext))
-    assert np.all(np.isfinite(np.asarray(g)))

@@ -7,8 +7,20 @@ from spartacus_surface_tpu.utils import netcdf_c
 from spartacus_surface_tpu.utils.netcdf_io import InputFile, OutputFile
 
 
-def test_read_reference_classic():
-    with InputFile("/root/reference/test/simple/test_surfaces_in.nc") as f:
+def _classic_input(tmp_path, ncol=4, nlay=8):
+    """A reference-schema NetCDF3 input (driver/synthetic_input.py)."""
+    from spartacus_surface_tpu.driver.synthetic_input import (make_fields,
+                                                               write_input)
+
+    fields = make_fields(ncol, nlay, tiles=(1,), seed=0)
+    fields["cos_solar_zenith_angle"] = (("column",), np.full(ncol, 0.5))
+    path = str(tmp_path / "in.nc")
+    write_input(path, fields)
+    return path
+
+
+def test_read_reference_classic(tmp_path):
+    with InputFile(_classic_input(tmp_path)) as f:
         assert f.exists("cos_solar_zenith_angle")
         assert not f.exists("no_such_variable")
         assert f.rank("height") == 2
@@ -40,8 +52,8 @@ def test_native_netcdf4_roundtrip(tmp_path):
 
 
 @pytest.mark.skipif(not netcdf_c.available(), reason="libnetcdf missing")
-def test_native_reads_classic_too():
-    f = netcdf_c.NativeFile("/root/reference/test/urban/russell_square.nc")
+def test_native_reads_classic_too(tmp_path):
+    f = netcdf_c.NativeFile(_classic_input(tmp_path))
     assert f.dimensions()["layer"] == 8
     assert f.var_dimensions("height") == ("column", "layer_interface")
     f.close()

@@ -1,7 +1,7 @@
 """Single-precision (float32) parity study.
 
 The reference supports -DSINGLE_PRECISION builds (Makefile:42-44) with jprb
-as float32; the TPU fast path runs float32.  This test quantifies the f32
+as float32; --precision single runs float32.  This test quantifies the f32
 error against the f64 solution — fluxes should agree to ~1e-4 relative and
 the conservation residual should stay below ~1e-3 W/m2 per unit incoming
 flux.

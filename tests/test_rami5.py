@@ -76,7 +76,7 @@ SCENE_SZAS = {
 def test_rami5_full_matrix(scene):
     """Every illumination x soil case of the reference's `make test` for
     one scene, solved in ONE batched run: the (diffuse + direct SZAs) x
-    (real + black soil) matrix becomes the column axis — the TPU-native
+    (real + black soil) matrix becomes the column axis — the batched
     equivalent of the reference's per-case driver invocations."""
     from spartacus_surface_tpu.driver.read_input import read_input
     from spartacus_surface_tpu.models import flux_utils

@@ -5,8 +5,7 @@ the conservation-budget summary/table split."""
 import numpy as np
 import pytest
 
-from spartacus_surface_tpu.driver.main import (_STREAM_SLICE_ELEMS,
-                                               _auto_stream_chunk)
+from spartacus_surface_tpu.driver.main import _auto_stream_chunk
 from spartacus_surface_tpu.driver.merge import find_shards
 from spartacus_surface_tpu.models import flux_utils
 from spartacus_surface_tpu.utils import netcdf_c
@@ -70,28 +69,26 @@ class _Cfg:
 
 
 def test_auto_stream_chunk():
-    import jax
-
-    from spartacus_surface_tpu.driver.main import _STREAM_SLICE_ELEMS_X64
+    from spartacus_surface_tpu.utils import memory
 
     cfg = _Cfg()
     arrays = {"dz": np.zeros((1, 40))}
-    # the tiny x64 target applies on TPU only; this suite runs on CPU
-    target = (
-        _STREAM_SLICE_ELEMS_X64
-        if jax.config.jax_enable_x64 and jax.default_backend() == "tpu"
-        else _STREAM_SLICE_ELEMS
-    )
-    assert target == _STREAM_SLICE_ELEMS  # CPU: big slices even in f64
-    # below threshold: no streaming
-    small = (2 * target) // (40 * 14)
-    assert _auto_stream_chunk(cfg, arrays, small) == 0
+    per_col = memory.io_bytes_per_column(40, 14, 4)
+    # a limit whose IO share holds exactly 10000 such columns
+    limit = int(10000 * per_col / memory.IO_SHARE) + 1
+    # no device limit (the CPU backend): never streams
+    assert _auto_stream_chunk(cfg, arrays, 50048, 1, None, 4) == 0
+    # below the share: no streaming
+    assert _auto_stream_chunk(cfg, arrays, 10000, 1, limit, 4) == 0
     # 50048 x 40 x 14: streams, chunk divides ncol evenly, slice in budget
-    ck = _auto_stream_chunk(cfg, arrays, 50048)
-    assert ck > 0 and 50048 % ck == 0
-    assert ck * 40 * 14 <= 2 * target
+    ck = _auto_stream_chunk(cfg, arrays, 50048, 1, limit, 4)
+    assert ck > 0 and 50048 % ck == 0 and ck <= 10000
+    # a mesh splits every buffer over its devices
+    assert _auto_stream_chunk(cfg, arrays, 50048, 8, limit, 4) == 0
+    # double precision halves the slice
+    assert _auto_stream_chunk(cfg, arrays, 10000, 1, limit, 8) == 5000
     # prime ncol: falls back to ceil split
-    assert _auto_stream_chunk(cfg, arrays, 50023) > 0
+    assert 0 < _auto_stream_chunk(cfg, arrays, 50023, 1, limit, 4) <= 10000
 
 
 def test_budget_summary_vs_table(capsys):

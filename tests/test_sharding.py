@@ -43,34 +43,6 @@ def test_sharded_equals_single_device():
 
 
 @pytest.mark.skipif(jax.device_count() < 8, reason="needs 8 devices")
-def test_pallas_kernels_under_sharding_interpret():
-    """The production TPU combination — Pallas factory + sweep kernels
-    with NamedSharding-ed inputs — must compile and execute end-to-end
-    over the 8-device mesh and match the unsharded kernel run (VERDICT r3
-    missing #3: this combination previously had no coverage anywhere).
-    Kernels are forced on explicitly; off-TPU they run in interpret mode,
-    which still exercises the shard-size / tile-padding interaction."""
-    rng = np.random.default_rng(5)
-    inp = make_inputs(rng, C=16, L=2, S=1, urban=True)
-    # f32 end to end: the kernel path's production dtype
-    inp = jax.tree_util.tree_map(lambda x: np.asarray(x, np.float32), inp)
-    opt = SolverOptions(nreg=2, nstream=2, do_urban=True, n_double=6,
-                        use_pallas_factory=True, use_pallas_sweeps=True)
-    lg = LegendreGauss(2)
-
-    ref = spartacus_sw(inp, opt, lg)
-    mesh = make_mesh(8)
-    sharded = shard_inputs_by_column(inp, mesh)
-    got = spartacus_sw(sharded, opt, lg)
-
-    for a, b in zip(jax.tree_util.tree_leaves(ref),
-                    jax.tree_util.tree_leaves(got)):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=2e-6, atol=2e-6)
-    assert len(jax.tree_util.tree_leaves(got)[0].sharding.device_set) == 8
-
-
-@pytest.mark.skipif(jax.device_count() < 8, reason="needs 8 devices")
 def test_dryrun_multichip_entrypoint():
     import __graft_entry__ as g
 

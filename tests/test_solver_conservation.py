@@ -201,31 +201,78 @@ def test_column_chunked_solve_matches_unchunked():
             )
 
 
-def test_auto_column_chunk_resolution():
-    """column_chunk = -1 (AUTO) resolves to an even ~2048 split on the
-    fused kernel path, and to 'no chunking' off it; explicit values pass
+def test_auto_column_chunk_resolution(monkeypatch):
+    """column_chunk = -1 (AUTO) resolves from the device memory limit
+    (utils/memory.py): no chunking where the device reports none (the
+    CPU), the fewest even chunks that fit otherwise; explicit values pass
     through untouched."""
     from spartacus_surface_tpu.models.solver import (
         SolverOptions, _resolve_column_chunk)
     from spartacus_surface_tpu.ops.legendre_gauss import LegendreGauss
+    from spartacus_surface_tpu.utils import memory
 
     lg = LegendreGauss(4)
     base = dict(nreg=2, nstream=4, do_urban=True)
-    kern = dict(use_pallas_factory=True, use_pallas_sweeps=True)
 
     # Explicit values pass through
-    assert _resolve_column_chunk(SolverOptions(**base), lg, 10**6) == 0
     assert _resolve_column_chunk(
-        SolverOptions(**base, column_chunk=4096), lg, 10**6) == 4096
-    # AUTO off the kernel path (CPU backend here): no chunking
+        SolverOptions(**base), lg, 10**6, 8, 1, 4) == 0
     assert _resolve_column_chunk(
-        SolverOptions(**base, column_chunk=-1), lg, 10**6) == 0
-    # AUTO on the (forced) kernel path: even split near 2048
-    opt = SolverOptions(**base, **kern, column_chunk=-1)
-    assert _resolve_column_chunk(opt, lg, 2048) == 0      # fits one chunk
-    assert _resolve_column_chunk(opt, lg, 16384) == 2048  # 8 even chunks
-    ck = _resolve_column_chunk(opt, lg, 5000)             # 3 chunks of 1667
-    assert ck == 1667 and -(-5000 // ck) == 3
-    # Multiband: target shrinks to ~8192 flattened batch elements
-    assert _resolve_column_chunk(opt, lg, 1024, S=14) == 512  # 2 x 512
-    assert _resolve_column_chunk(opt, lg, 512, S=14) == 0     # fits one
+        SolverOptions(**base, column_chunk=4096), lg, 10**6, 8, 1, 4) == 4096
+    # AUTO on the CPU backend (no memory limit): no chunking
+    opt = SolverOptions(**base, column_chunk=-1)
+    assert _resolve_column_chunk(opt, lg, 10**6, 8, 1, 4) == 0
+    # AUTO under a device limit: chunks hold the share, split evenly
+    per_col = memory.solve_bytes_per_column(2, 4, 8, 1, 4)
+    monkeypatch.setattr(memory, "device_bytes_limit",
+                        lambda: int(1000 * per_col / memory.SOLVE_SHARE))
+    assert _resolve_column_chunk(opt, lg, 1000, 8, 1, 4) == 0  # fits
+    assert _resolve_column_chunk(opt, lg, 4000, 8, 1, 4) == 1000
+    ck = _resolve_column_chunk(opt, lg, 2999, 8, 1, 4)  # 3 chunks
+    assert ck == 1000 and -(-2999 // ck) == 3
+    # Multiband and double precision shrink the chunk in proportion
+    assert _resolve_column_chunk(opt, lg, 1000, 8, 2, 4) == 500
+    assert _resolve_column_chunk(opt, lg, 1000, 8, 1, 8) == 500
+
+
+@pytest.mark.parametrize("gap", [1e-9, 1e-7, 1e-5])
+def test_near_empty_roof_leaks_as_the_reference(tmp_path, gap):
+    """An exposed roof narrower than min_building_fraction (1e-6) is
+    excised, as the reference does, and the budget then leaks O(roof
+    fraction) of the top flux; the NumPy reference tests/pyref leaks the
+    same.  A wider roof closes the budget to rounding."""
+    from spartacus_surface_tpu.driver import synthetic_input as si
+    from spartacus_surface_tpu.driver.read_input import read_input
+    from spartacus_surface_tpu.models import flux_utils
+    from spartacus_surface_tpu.models.dispatch import run_radsurf
+    from spartacus_surface_tpu.models.simple_spectrum import (
+        calc_simple_spectrum_lw)
+    from spartacus_surface_tpu.utils.config import Config, DriverConfig
+    from tests.pyref.harness import pyref_radsurf
+
+    nam, inp = si.write_deployment("coupled", str(tmp_path), ncol=6, seed=0)
+    config = Config.from_namelist(nam).consolidate()
+    arrays = read_input(inp, config, DriverConfig.from_namelist(nam))["arrays"]
+    calc_simple_spectrum_lw(config, arrays)
+    urban = np.isin(arrays["i_representation"], (2, 3))
+    arrays = {k: v[urban] for k, v in arrays.items()}
+    bf = arrays["building_fraction"]
+    bf[:, 2] = bf[:, 1] - gap
+
+    def residuals(out, key):
+        comp = {k: np.asarray(v) for k, v in flux_utils.budget_components(
+            out[key], arrays["i_representation"]).items()}
+        return (comp["ground"] + comp["air"] + comp["wall"] + comp["roof"]
+                + comp["veg"] + comp["veg_air"] - comp["top"])
+
+    got = run_radsurf(config, arrays)
+    want = pyref_radsurf(config, arrays)
+    for key in ("sw_norm_dir", "sw_norm_diff", "lw_norm"):
+        res, ref = residuals(got, key), residuals(want, key)
+        np.testing.assert_allclose(res, ref, rtol=1e-4, atol=1e-14,
+                                   err_msg=key)
+        if gap < config.min_building_fraction:
+            assert (np.abs(res) > 1e-3 * gap).all(), key
+            assert (np.abs(res) < 1e3 * gap).all(), key
+        else:
+            assert np.abs(res).max() < 1e-14, key
